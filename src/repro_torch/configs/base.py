@@ -1,0 +1,251 @@
+"""Model/architecture configuration schema + registry.
+
+A copy of ``src/repro/configs/base.py``: the port imports nothing of the
+JAX package, so it keeps its own copy of this pure-stdlib module.
+
+Every assigned architecture is a ``ModelConfig`` built from the exact
+public-literature hyperparameters (see ``src/repro_torch/configs/archs.py``).
+A config describes the layer stack as a repeating *pattern* of sublayer
+kinds (period P); ``n_layers = n_periods * P + len(remainder)``. Pattern
+entries are "<mixer>:<ffn>" strings:
+
+    mixer ∈ {attn, local, mamba, rwkv}     ffn ∈ {mlp, moe, rwkv}
+
+e.g. gemma3 = ("local:mlp",)*5 + ("attn:mlp",)  — 5 sliding-window layers
+per global layer; jamba period-8 interleaves 7 mamba + 1 attention with
+MoE on every other sublayer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    rope_theta_local: float = 10000.0   # gemma3 uses a lower base locally
+    qk_norm: bool = False
+    sliding_window: int | None = None   # for "local" pattern entries
+    q_chunk: int = 512                  # flash-style chunking (XLA path)
+    kv_chunk: int = 1024
+    causal: bool = True
+    logit_softcap: float | None = None
+    kv_replicate_hint: bool = True      # False: let SPMD keep K/V sharded
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0                # total shared-expert hidden width
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    padded_experts: int = 0             # pad expert dim for EP divisibility
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                    # 0 -> ceil(d_model / 16)
+    chunk: int = 256                    # time-chunking for the scan
+    scan_dtype: str = "float32"         # bf16 halves the chunk temporaries
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_size: int = 64
+    decay_lora: int = 64
+    gate_lora: int = 64
+    token_shift_lora: int = 32
+    chunk: int = 64                     # WKV chunk length
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    n_encoder_layers: int = 6
+    encoder_seq_ratio: int = 1          # encoder frames per "seq_len" unit
+    decoder_seq_divisor: int = 4        # decoder tokens = seq_len / divisor
+    cross_len_decode: int = 1500        # encoder length during decode (whisper 30s)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                          # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    pattern: tuple[str, ...] = ("attn:mlp",)
+    attention: AttentionConfig | None = None
+    moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    rwkv: RWKVConfig | None = None
+    encdec: EncDecConfig | None = None
+    frontend: str = "none"               # none | vision_stub | audio_stub
+    frontend_tokens: int = 0             # stub embeddings prepended to text
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    act: str = "silu"                    # mlp activation (GLU gate)
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: str = "full"                  # none | dots | full
+    # optimizer-state dtype: fp32 default; bf16 for >=100B-param models
+    opt_state_dtype: str = "float32"
+    # which shape cells this arch supports (skip policy, see DESIGN.md)
+    supports_long_context: bool = False
+    # ANALYSIS ONLY: unroll the period scan so XLA cost_analysis counts
+    # every layer (scan bodies are otherwise counted once — see
+    # EXPERIMENTS.md §Roofline methodology)
+    unroll_stack: bool = False
+
+    # ---------------------------------------------------------------- sizes
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding-table rows, padded to a multiple of 256 so the vocab
+        dim shards evenly over the 16-way model axis (padded logits are
+        masked to -inf)."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def remainder(self) -> tuple[str, ...]:
+        """Trailing sublayers that do not fill a whole period."""
+        r = self.n_layers % len(self.pattern)
+        return self.pattern[:r]
+
+    def head_dims(self) -> tuple[int, int, int]:
+        a = self.attention
+        assert a is not None
+        return a.num_heads, a.num_kv_heads, a.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND roofline math)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        total = V * D  # embeddings
+        if not self.tie_embeddings:
+            total += V * D
+        counts = {k: 0 for k in ("attn", "local", "attnx", "mamba", "rwkv")}
+        ffns = {k: 0 for k in ("mlp", "moe", "rwkv")}
+        full = list(self.pattern) * self.n_periods + list(self.remainder)
+        for entry in full:
+            mixer, ffn = entry.split(":")
+            counts[mixer] += 1
+            ffns[ffn] += 1
+        if self.attention is not None:
+            H, Hk, Dh = self.head_dims()
+            attn_p = D * H * Dh + 2 * D * Hk * Dh + H * Dh * D
+            total += (counts["attn"] + counts["local"]) * attn_p
+            total += counts["attnx"] * 2 * attn_p  # self + cross
+        if self.encdec is not None and self.attention is not None:
+            H, Hk, Dh = self.head_dims()
+            attn_p = D * H * Dh + 2 * D * Hk * Dh + H * Dh * D
+            total += self.encdec.n_encoder_layers * (attn_p + 3 * D * F)
+        if self.ssm is not None:
+            s = self.ssm
+            d_in = s.expand * D
+            dtr = s.dt_rank or math.ceil(D / 16)
+            mamba_p = (
+                D * 2 * d_in + s.d_conv * d_in
+                + d_in * (dtr + 2 * s.d_state) + dtr * d_in
+                + d_in * s.d_state + d_in + d_in * D
+            )
+            total += counts["mamba"] * mamba_p
+        if self.rwkv is not None:
+            total += counts["rwkv"] * (4 * D * D + D * D)  # r,k,v,g,o proj
+            total += counts["rwkv"] * (
+                self.rwkv.decay_lora * 2 * D + self.rwkv.token_shift_lora * 12 * D
+            )
+        ffns_mlp = ffns["mlp"]
+        total += ffns_mlp * 3 * D * F  # SwiGLU
+        if ffns["rwkv"]:
+            total += ffns["rwkv"] * (2 * D * F + D * D)  # rwkv channel mix
+        if self.moe is not None and ffns["moe"]:
+            m = self.moe
+            per_layer = m.num_experts * 3 * D * m.d_ff_expert + D * m.num_experts
+            if m.d_ff_shared:
+                per_layer += 3 * D * m.d_ff_shared + D
+            total += ffns["moe"] * per_layer
+        return total
+
+    def active_param_count(self) -> int:
+        """Active (per-token) parameters for MoE models — MODEL_FLOPS uses
+        6 * N_active * D_tokens."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive_experts = m.num_experts - m.top_k
+        full = list(self.pattern) * self.n_periods + list(self.remainder)
+        n_moe = sum(1 for e in full if e.endswith(":moe"))
+        return self.param_count() - n_moe * inactive_experts * 3 * self.d_model * m.d_ff_expert
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ------------------------------------------------------------------ registry
+_REGISTRY: dict[str, "callable"] = {}
+
+
+def register(arch_id: str):
+    def deco(fn):
+        _REGISTRY[arch_id] = fn
+        return fn
+
+    return deco
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    # import the per-arch modules lazily so the registry is populated
+    import repro_torch.configs.archs  # noqa: F401
+
+    if arch_id not in _REGISTRY:
+        raise KeyError(
+            f"unknown arch {arch_id!r}; available: {sorted(_REGISTRY)}"
+        )
+    return _REGISTRY[arch_id]()
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs.archs  # noqa: F401
+
+    return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------- shapes
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """Skip policy (documented in DESIGN.md §Arch-applicability)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: 500k decode needs sub-quadratic attention"
+    return True, ""
